@@ -10,8 +10,8 @@ sys.path.insert(0, __file__.rsplit("/tests/", 1)[0])
 
 def main():
     coord, nproc, pid = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
-    import ignis_tpu  # noqa: F401  (pins the CPU platform first)
-    from ignis_tpu.parallel.sharding import (host_local_work,
+    import ignis_jax  # noqa: F401  (pins the CPU platform first)
+    from ignis_jax.parallel.sharding import (host_local_work,
                                              init_distributed, make_mesh,
                                              replicate, sharded_render_fn)
     init_distributed(coordinator=coord, num_processes=nproc, process_id=pid)
@@ -21,7 +21,7 @@ def main():
     ndev = len(jax.devices())
     assert ndev == 2 * nproc, ndev  # 2 local devices per process
 
-    from ignis_tpu.api import Runtime
+    from ignis_jax.api import Runtime
     scene_dict = {
         "technique": {"type": "path", "max_depth": 2},
         "camera": {"type": "perspective", "fov": 60,

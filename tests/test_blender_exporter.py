@@ -1,7 +1,7 @@
 """Blender exporter round-trip (VERDICT r4 #9): export_scene runs against
 a duck-typed stand-in of the bpy scene graph (no Blender in this image),
 and the produced JSON — textured material, area light with generated
-emitter geometry, camera/film settings — renders with ignis_tpu."""
+emitter geometry, camera/film settings — renders with ignis_jax."""
 
 import json
 import math
@@ -126,7 +126,7 @@ def _make_scene(tmp_path):
 
 
 def test_export_and_render_round_trip(tmp_path):
-    from ignis_tpu_blender import export_scene
+    from ignis_jax_blender import export_scene
     ctx = _make_scene(tmp_path)
     out = tmp_path / "scene.json"
     export_scene(ctx, str(out))
@@ -144,7 +144,7 @@ def test_export_and_render_round_trip(tmp_path):
     assert doc["film"]["spp"] == 16
 
     # ...and the exported scene actually renders
-    from ignis_tpu.api import Runtime
+    from ignis_jax.api import Runtime
     rt = Runtime(str(out), width=32, height=32)
     rt.step(spi=2)
     img = rt.currentFrame()

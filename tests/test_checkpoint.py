@@ -23,7 +23,7 @@ SCENE = {
 
 
 def test_checkpoint_resume_bitwise(tmp_path):
-    from ignis_tpu.api import load_scene
+    from ignis_jax.api import load_scene
     rt = load_scene(json.dumps(SCENE), seed=11)
     for _ in range(3):
         rt.step(spi=2)
@@ -42,7 +42,7 @@ def test_checkpoint_resume_bitwise(tmp_path):
 
 
 def test_checkpoint_size_mismatch(tmp_path):
-    from ignis_tpu.api import load_scene
+    from ignis_jax.api import load_scene
     rt = load_scene(json.dumps(SCENE))
     rt.step(spi=1)
     rt.saveCheckpoint(tmp_path / "ck.npz")
@@ -55,7 +55,7 @@ def test_checkpoint_size_mismatch(tmp_path):
 
 def test_tonemap_imageinfo_api(tmp_path):
     """Runtime.tonemap / Runtime.imageinfo (Runtime.h surface parity)."""
-    from ignis_tpu.api import load_scene
+    from ignis_jax.api import load_scene
     rt = load_scene(json.dumps(SCENE))
     rt.step(spi=2)
     tm = rt.tonemap("aces")

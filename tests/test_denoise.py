@@ -10,7 +10,7 @@ jax = pytest.importorskip("jax")
 
 
 def test_denoise_reduces_noise_preserves_edges():
-    from ignis_tpu.render.denoise import atrous_denoise
+    from ignis_jax.render.denoise import atrous_denoise
     rng = np.random.RandomState(0)
     h = w = 64
     clean = np.zeros((h, w, 3), np.float32)
@@ -31,8 +31,8 @@ def test_denoise_reduces_noise_preserves_edges():
 
 
 def test_denoise_runtime_end_to_end():
-    from ignis_tpu.api import load_scene
-    from ignis_tpu.render.denoise import denoise_runtime
+    from ignis_jax.api import load_scene
+    from ignis_jax.render.denoise import denoise_runtime
     sc = {
         "technique": {"type": "path", "max_depth": 3},
         "camera": {"type": "perspective", "fov": 45,

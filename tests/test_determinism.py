@@ -44,7 +44,7 @@ SCENE = {
 
 
 def _runtime(seed=7):
-    from ignis_tpu.api import load_scene
+    from ignis_jax.api import load_scene
     return load_scene(json.dumps(SCENE), seed=seed)
 
 
@@ -71,7 +71,7 @@ def test_wavefront_equals_trace_wave_sum():
     must agree per pixel (same RNG keying: (sample, iter, frame, x, y))."""
     import jax.numpy as jnp
 
-    from ignis_tpu.render.integrator import render_wavefront, trace_wave
+    from ignis_jax.render.integrator import render_wavefront, trace_wave
     rt = _runtime()
     scene, tables = rt.scene, rt.tables
     w, h = scene.width, scene.height
@@ -99,8 +99,8 @@ def test_sharded_matches_single_device():
     """8-device CPU mesh pixel-sharded render == single-device render."""
     import jax.numpy as jnp
 
-    from ignis_tpu.parallel.sharding import make_mesh, replicate, shard_wave
-    from ignis_tpu.render.integrator import trace_wave
+    from ignis_jax.parallel.sharding import make_mesh, replicate, shard_wave
+    from ignis_jax.render.integrator import trace_wave
 
     if len(jax.devices()) < 8:
         pytest.skip("needs the 8-device virtual CPU mesh")

@@ -11,7 +11,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from ignis_tpu.measured import djmeasured as dj
+from ignis_jax.measured import djmeasured as dj
 
 
 def _smooth(rng, shape):
@@ -143,7 +143,7 @@ def test_render_djmeasured_scene(tmp_path):
         "lights": [{"type": "point", "name": "pl",
                     "position": [0, 0.5, -1], "intensity": [3, 3, 3]}],
     }
-    from ignis_tpu.api import Runtime
+    from ignis_jax.api import Runtime
     rt = Runtime(scene)
     rt.step(spi=2)
     img = rt.currentFrame()

@@ -28,7 +28,7 @@ def _checker_scene(aperture, focal, dist=3.0):
 
 
 def _render(sc, spp=16):
-    from ignis_tpu.api import load_scene
+    from ignis_jax.api import load_scene
     rt = load_scene(json.dumps(sc))
     for _ in range(spp // 4):
         rt.step(spi=4)
@@ -65,7 +65,7 @@ def test_brick_pattern_fractions():
     """Gap fraction: body covers (1-gap_x)*(1-gap_y) of each tile."""
     import jax.numpy as jnp
 
-    from ignis_tpu.texture.eval import eval_one
+    from ignis_jax.texture.eval import eval_one
     tex = dict(type=3, name="b",
                color0=np.float32([0, 0, 0]), color1=np.float32([1, 1, 1]),
                scale=np.float32([3, 6]), gap=np.float32([0.1, 0.2]),
@@ -86,7 +86,7 @@ def test_brick_running_bond():
     """Odd rows are offset by half a brick."""
     import jax.numpy as jnp
 
-    from ignis_tpu.texture.eval import eval_one
+    from ignis_jax.texture.eval import eval_one
     tex = dict(type=3, name="b",
                color0=np.float32([0, 0, 0]), color1=np.float32([1, 1, 1]),
                scale=np.float32([1, 2]), gap=np.float32([0.3, 0.0]),

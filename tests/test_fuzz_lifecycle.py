@@ -13,7 +13,7 @@ import pytest
 
 jax = pytest.importorskip("jax")
 
-from ignis_tpu.scene.parser import SceneError, load_scene_string  # noqa: E402
+from ignis_jax.scene.parser import SceneError, load_scene_string  # noqa: E402
 
 
 def _try_parse(text):
@@ -74,7 +74,7 @@ def test_multiple_runtimes_lifecycle():
     """Sequential runtimes over different scenes, alternating techniques
     (the CPU/GPU alternation of the reference maps to technique/driver
     variation here); each steps to 8 spp; no crash, no cross-talk."""
-    from ignis_tpu.api import load_scene
+    from ignis_jax.api import load_scene
     scenes = []
     for i, tech in enumerate(["path", "volpath", "debug", "path"]):
         scenes.append(json.dumps({

@@ -9,9 +9,9 @@ import math
 import numpy as np
 import pytest
 
-from ignis_tpu.render.glare import (GlareSettings, WHITE_EFFICIENCY,
+from ignis_jax.render.glare import (GlareSettings, WHITE_EFFICIENCY,
                                     evaluate_glare_host, pixel_solid_angles)
-from ignis_tpu.scene.compile import CameraConfig
+from ignis_jax.scene.compile import CameraConfig
 
 
 def make_cam(fov=60.0, aspect=1.0):
@@ -83,9 +83,9 @@ def test_fixed_vertical_illuminance_passthrough():
 
 
 def test_runtime_evaluate_glare_end_to_end():
-    from ignis_tpu.api import Runtime
-    from __graft_entry__ import _demo_scene
-    rt = Runtime(_demo_scene(), width=32, height=32)
+    from ignis_jax.api import Runtime
+    from ignis_jax.scene.generated import demo_scene
+    rt = Runtime(demo_scene(), width=32, height=32)
     rt.step(spi=1)
     out, heat, mask = rt.evaluateGlare(mul=3.0)
     assert np.isfinite(out.dgp)

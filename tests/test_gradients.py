@@ -10,7 +10,7 @@ from conftest import create_flat_scene
 
 
 def _loss_fn(scene, base_tables, n=64):
-    from ignis_tpu.render.integrator import trace_wave
+    from ignis_jax.render.integrator import trace_wave
 
     idx = np.arange(n, dtype=np.int32)
     x = jnp.asarray(idx % scene.width)
@@ -27,7 +27,7 @@ def _loss_fn(scene, base_tables, n=64):
 
 
 def _compile(scene_dict, size=16):
-    from ignis_tpu.scene.compile import load_and_compile
+    from ignis_jax.scene.compile import load_and_compile
     scene_dict = dict(scene_dict)
     scene_dict["film"] = {"size": [size, size]}
     scene = load_and_compile(scene_dict)
@@ -79,7 +79,7 @@ def test_grad_wrt_area_light_radiance():
                     "radiance": [2, 2, 2]}],
     }
     scene, tables = _compile(scene_dict)
-    from ignis_tpu.render.integrator import trace_wave
+    from ignis_jax.render.integrator import trace_wave
     n = scene.width * scene.height
     idx = np.arange(n, dtype=np.int32)
     x = jnp.asarray(idx % scene.width)

@@ -13,7 +13,7 @@ from conftest import create_flat_scene
 
 
 def _compile(scene_dict, size=16):
-    from ignis_tpu.scene.compile import load_and_compile
+    from ignis_jax.scene.compile import load_and_compile
     scene_dict = dict(scene_dict)
     scene_dict["film"] = {"size": [size, size]}
     scene = load_and_compile(scene_dict)
@@ -22,7 +22,7 @@ def _compile(scene_dict, size=16):
 
 
 def _loss(scene, tables, key, n=64, center=False):
-    from ignis_tpu.render.integrator import trace_wave
+    from ignis_jax.render.integrator import trace_wave
     idx = np.arange(n, dtype=np.int32)
     if center:  # lanes over the middle rows of the film
         idx = idx + (scene.width * scene.height // 2 - n // 2)
@@ -55,7 +55,7 @@ def _check_fd(loss, val, slots, eps=1e-3, rel=2e-2):
 
 def test_grad_texture_texel(tmp_path):
     """d radiance / d texel of an image texture driving reflectance."""
-    from ignis_tpu.utils.exr import write_exr
+    from ignis_jax.utils.exr import write_exr
     img = np.full((4, 4, 3), 0.5, np.float32)
     img[1, 2] = [0.9, 0.3, 0.1]
     path = tmp_path / "tex.exr"

@@ -5,7 +5,7 @@ import numpy as np
 
 
 def _rt():
-    from ignis_tpu.api import Runtime
+    from ignis_jax.api import Runtime
     rt = Runtime("/root/reference/scenes/plane-plane.json",
                  width=32, height=32)
     rt.step(spi=2)
@@ -13,7 +13,7 @@ def _rt():
 
 
 def test_aov_frames_finite_and_shaped():
-    from ignis_tpu.cli.igview import _VIEWS, _aov_frame
+    from ignis_jax.cli.igview import _VIEWS, _aov_frame
     rt = _rt()
     for mode in _VIEWS[1:]:
         f = _aov_frame(rt, mode)
@@ -26,7 +26,7 @@ def test_aov_frames_finite_and_shaped():
 
 
 def test_histogram_pane_renders():
-    from ignis_tpu.cli.igview import _histogram_pane
+    from ignis_jax.cli.igview import _histogram_pane
     rt = _rt()
     pane = _histogram_pane(rt, cols=48)
     lines = pane.splitlines()

@@ -93,7 +93,7 @@ def test_two_sided_diffuse_constant_env_furnace():
 
     import numpy as np
 
-    from ignis_tpu.api import load_scene
+    from ignis_jax.api import load_scene
     base = {
         "technique": {"type": "path", "max_depth": 3},
         "camera": {"type": "perspective", "fov": 40,
@@ -124,7 +124,7 @@ def test_env_sat_cdf_variant():
     .cpp:15): the SAT stores the exact reference weighting and its derived
     sampling tables integrate the same env as the plain CDF."""
     import numpy as np
-    from ignis_tpu.light.env_cdf import build_sat2d, sat_to_cdf
+    from ignis_jax.light.env_cdf import build_sat2d, sat_to_cdf
     rng = np.random.default_rng(3)
     img = rng.uniform(0, 1, (32, 64, 3)).astype(np.float32) ** 2
     img[5, 11] = 50.0  # bright texel
@@ -148,8 +148,8 @@ def test_env_sat_cdf_variant():
 
 def test_env_sat_scene_loads_and_renders():
     import numpy as np
-    from ignis_tpu.api import Runtime
-    from ignis_tpu.utils.exr import write_exr
+    from ignis_jax.api import Runtime
+    from ignis_jax.utils.exr import write_exr
     import tempfile, os
     rng = np.random.default_rng(1)
     with tempfile.TemporaryDirectory() as td:

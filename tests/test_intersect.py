@@ -4,8 +4,8 @@ src/tests/artic/test_intersection.art)."""
 import numpy as np
 import jax.numpy as jnp
 
-from ignis_tpu.ops.intersect import intersect_any, intersect_closest
-from ignis_tpu.ops.bvh import BVH, build_bvh, bvh_any, bvh_closest, bvh_tables
+from ignis_jax.ops.intersect import intersect_any, intersect_closest
+from ignis_jax.ops.bvh import BVH, build_bvh, bvh_any, bvh_closest, bvh_tables
 
 
 def _quad_tables():

@@ -34,8 +34,8 @@ def test_sigma_a_gradient_flows(tmp_path):
     must carry gradient to medium_data (the DragonAttenuation path)."""
     import jax.numpy as jnp
 
-    from ignis_tpu.api import load_scene
-    from ignis_tpu.render.integrator import trace_wave
+    from ignis_jax.api import load_scene
+    from ignis_jax.render.integrator import trace_wave
     from inverse_render import make_volume_gltf
     g = make_volume_gltf(tmp_path / "s.gltf")
     rt = load_scene(str(g), width=20, height=20)
@@ -64,8 +64,8 @@ def test_gltf_sparse_accessor_and_texture_transform(tmp_path):
 
     import numpy as np
 
-    from ignis_tpu.utils.exr import write_exr
-    from ignis_tpu.scene.gltf import GLTF, load_gltf_scene
+    from ignis_jax.utils.exr import write_exr
+    from ignis_jax.scene.gltf import GLTF, load_gltf_scene
 
     tex = np.zeros((2, 2, 3), np.float32)
     tex[0, 0] = [1, 0, 0]

@@ -49,7 +49,7 @@ def _grid_light_scene(selector, nl=16):
 
 
 def _render(scene_dict, spi, iters, seed=0):
-    from ignis_tpu.api import load_scene
+    from ignis_jax.api import load_scene
     rt = load_scene(json.dumps(scene_dict), seed=seed)
     for _ in range(iters):
         rt.step(spi=spi)
@@ -59,7 +59,7 @@ def _render(scene_dict, spi, iters, seed=0):
 
 
 def test_hierarchy_tables_built():
-    from ignis_tpu.api import load_scene
+    from ignis_jax.api import load_scene
     rt = load_scene(json.dumps(_grid_light_scene("hierarchy")))
     assert "lh_child" in rt.tables
     assert rt.scene.lh_depth >= 4  # 16 lights -> depth 5 tree
@@ -73,8 +73,8 @@ def test_sample_pdf_consistency():
     returned for that draw."""
     import jax.numpy as jnp
 
-    from ignis_tpu.api import load_scene
-    from ignis_tpu.light.hierarchy import hierarchy_pdf, hierarchy_sample
+    from ignis_jax.api import load_scene
+    from ignis_jax.light.hierarchy import hierarchy_pdf, hierarchy_sample
     rt = load_scene(json.dumps(_grid_light_scene("hierarchy")))
     t = rt.tables
     n = 512
@@ -118,7 +118,7 @@ def test_hierarchy_lower_variance_many_lights():
 
 @pytest.mark.slow
 def test_many_point_lights_scene_renders():
-    from ignis_tpu.api import load_scene
+    from ignis_jax.api import load_scene
     rt = load_scene(SCENE, width=32, height=32)
     assert "lh_child" in rt.tables  # selector: hierarchy in the scene json
     rt.step(spi=1)

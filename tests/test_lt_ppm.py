@@ -49,7 +49,7 @@ def _box_scene(tech):
 
 
 def _render_mean(tech, iters=6, spi=4):
-    from ignis_tpu.api import load_scene
+    from ignis_jax.api import load_scene
     rt = load_scene(json.dumps(_box_scene(tech)))
     for _ in range(iters):
         rt.step(spi=spi)
@@ -77,7 +77,7 @@ def test_photonmapper_runs_and_is_plausible():
 
 
 def test_ppm_radius_shrinks():
-    from ignis_tpu.render.photonmapper import ppm_compute_radius
+    from ignis_jax.render.photonmapper import ppm_compute_radius
     r0 = ppm_compute_radius(1.0, 0)
     r5 = ppm_compute_radius(1.0, 5)
     r20 = ppm_compute_radius(1.0, 20)
@@ -89,8 +89,8 @@ def test_emission_sampling_point_light():
     intensity already divided by the uniform-sphere pdf (light/point.art:9-12)."""
     import jax.numpy as jnp
 
-    from ignis_tpu.api import load_scene
-    from ignis_tpu.light.emission import sample_light_emission
+    from ignis_jax.api import load_scene
+    from ignis_jax.light.emission import sample_light_emission
 
     sc = _box_scene({"type": "path"})
     sc["lights"] = [{"type": "point", "name": "p",
@@ -132,7 +132,7 @@ def _mix_box(tech, mixed=True):
 
 
 def _render_scene_mean(sc, iters=6, spi=6):
-    from ignis_tpu.api import load_scene
+    from ignis_jax.api import load_scene
     rt = load_scene(json.dumps(sc))
     for _ in range(iters):
         rt.step(spi=spi)

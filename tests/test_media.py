@@ -61,7 +61,7 @@ def _hetero_scene(tmp_path, sigma_a, sigma_s, g=0.0, emission=(0, 0, 0)):
 
 
 def test_voxel_bin_loader(tmp_path):
-    from ignis_tpu.medium.volume import load_voxel_grid_bin
+    from ignis_jax.medium.volume import load_voxel_grid_bin
     binp = tmp_path / "g.bin"
     _write_bin(binp, [0.1, 0.2, 0.3], [0.4, 0.5, 0.6], [1, 2, 3],
                dims=(3, 2, 5))
@@ -80,7 +80,7 @@ def test_voxel_bin_loader(tmp_path):
 
 
 def test_grid_lookup_nearest_and_trilinear():
-    from ignis_tpu.medium.volume import grid_lookup
+    from ignis_jax.medium.volume import grid_lookup
     grid = jnp.arange(2 * 2 * 2 * 1, dtype=jnp.float32).reshape(2, 2, 2, 1)
     # voxel centers at normalized (0.25, 0.75)
     p = jnp.asarray([[0.2, 0.2, 0.2], [0.8, 0.2, 0.2], [0.2, 0.8, 0.8]])
@@ -98,8 +98,8 @@ def test_grid_lookup_nearest_and_trilinear():
 
 def test_constant_grid_matches_homogeneous_transmittance(tmp_path):
     """Quadrature transmittance through a constant grid == closed form."""
-    from ignis_tpu.api import load_scene
-    from ignis_tpu.medium.union import medium_eval
+    from ignis_jax.api import load_scene
+    from ignis_jax.medium.union import medium_eval
 
     sa, ss = [0.2, 0.6, 0.8], [0.3, 0.2, 0.1]
     rt = load_scene(json.dumps(_hetero_scene(tmp_path, sa, ss)))
@@ -125,8 +125,8 @@ def test_constant_grid_matches_homogeneous_transmittance(tmp_path):
 def test_constant_grid_delta_tracking_matches_homogeneous(tmp_path):
     """With a tight majorant on a constant grid the fictional coefficient
     is 0 and the flight matches the homogeneous closed form."""
-    from ignis_tpu.api import load_scene
-    from ignis_tpu.medium.union import medium_sample
+    from ignis_jax.api import load_scene
+    from ignis_jax.medium.union import medium_sample
 
     sa, ss = [0.1, 0.1, 0.1], [2.0, 2.0, 2.0]
     rt = load_scene(json.dumps(_hetero_scene(tmp_path, sa, ss)))
@@ -163,7 +163,7 @@ def test_constant_grid_delta_tracking_matches_homogeneous(tmp_path):
 def test_volpath_hetero_renders(tmp_path):
     """End-to-end: constant hetero grid renders close to the same scene
     with an equivalent homogeneous medium."""
-    from ignis_tpu.api import load_scene
+    from ignis_jax.api import load_scene
 
     sa, ss = [0.1, 0.1, 0.1], [0.8, 0.8, 0.8]
     sc_h = _hetero_scene(tmp_path, sa, ss)
@@ -188,7 +188,7 @@ def test_volpath_hetero_renders(tmp_path):
 def test_emissive_voxel_grid(tmp_path):
     """A purely absorbing+emitting grid produces radiance along camera
     rays (volpathtracer.art:216-221 absorption-event emission)."""
-    from ignis_tpu.api import load_scene
+    from ignis_jax.api import load_scene
 
     scene = _hetero_scene(tmp_path, [3.0, 3.0, 3.0], [0.0, 0.0, 0.0],
                           emission=(5.0, 5.0, 5.0))
@@ -203,7 +203,7 @@ def test_emissive_voxel_grid(tmp_path):
 
 def test_nvdb_roundtrip(tmp_path):
     """NanoVDB writer→reader round trip preserves the dense grid."""
-    from ignis_tpu.medium.nanovdb import load_nvdb_grid, write_nvdb_grid
+    from ignis_jax.medium.nanovdb import load_nvdb_grid, write_nvdb_grid
     rng = np.random.default_rng(7)
     dense = rng.uniform(0, 1, (12, 9, 17)).astype(np.float32)
     dense[dense < 0.3] = 0.0  # sparsity: some empty leaves
@@ -217,8 +217,8 @@ def test_nvdb_roundtrip(tmp_path):
 
 def test_nvdb_medium_end_to_end(tmp_path):
     """hetero_density medium via .nvdb renders finite, nonzero output."""
-    from ignis_tpu.api import load_scene
-    from ignis_tpu.medium.nanovdb import write_nvdb_grid
+    from ignis_jax.api import load_scene
+    from ignis_jax.medium.nanovdb import write_nvdb_grid
 
     dense = np.full((8, 8, 8), 0.8, np.float32)
     p = tmp_path / "cloud.nvdb"
@@ -245,8 +245,8 @@ def test_ratio_tracking_transmittance_converges(tmp_path):
     seed-averaged estimate must converge to the closed-form/quadrature
     transmittance, and the default method must remain deterministic."""
     import jax.numpy as jnp
-    from ignis_tpu.api import load_scene
-    from ignis_tpu.medium.union import medium_eval
+    from ignis_jax.api import load_scene
+    from ignis_jax.medium.union import medium_eval
 
     sa, ss = [0.4, 0.9, 1.4], [0.3, 0.2, 0.1]
     sc = _hetero_scene(tmp_path, sa, ss)

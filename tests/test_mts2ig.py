@@ -11,7 +11,7 @@ MTS = Path("/root/reference/scenes/evaluation/mitsuba")
 
 
 def test_convert_all_evaluation_scenes():
-    from ignis_tpu.cli.mts2ig import convert
+    from ignis_jax.cli.mts2ig import convert
     for xml in sorted(MTS.glob("*.xml")):
         sc = convert(xml)
         assert sc["shapes"] or sc["lights"], xml.name
@@ -31,9 +31,9 @@ def _fix_meshes(sc):
 
 
 def test_converted_point_scene_renders():
-    from ignis_tpu.cli.mts2ig import convert
-    from ignis_tpu.scene.parser import load_scene_dict
-    from ignis_tpu.api import Runtime
+    from ignis_jax.cli.mts2ig import convert
+    from ignis_jax.scene.parser import load_scene_dict
+    from ignis_jax.api import Runtime
     sc = convert(MTS / "point.xml")
     _fix_meshes(sc)
     rt = Runtime(load_scene_dict(sc, base_dir=MTS), width=48, height=48)
@@ -46,10 +46,10 @@ def test_converted_point_scene_renders():
 def test_converted_sphere_light_matches_reference():
     """Convert mitsuba/sphere-light.xml and compare against the SAME
     reference EXR the native-JSON golden uses."""
-    from ignis_tpu.cli.mts2ig import convert
-    from ignis_tpu.scene.parser import load_scene_dict
-    from ignis_tpu.api import Runtime
-    from ignis_tpu.utils.exr import read_exr
+    from ignis_jax.cli.mts2ig import convert
+    from ignis_jax.scene.parser import load_scene_dict
+    from ignis_jax.api import Runtime
+    from ignis_jax.utils.exr import read_exr
     ref = read_exr("/root/reference/scenes/evaluation/references/"
                    "ref-sphere-light-4096.exr")
     sc = convert(MTS / "sphere-light.xml")

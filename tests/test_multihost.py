@@ -27,8 +27,7 @@ def _free_port():
 def test_two_process_distributed_render_matches_single():
     port = _free_port()
     env = dict(os.environ)
-    env.update(IGNIS_TPU_PLATFORM="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=2",
+    env.update(XLA_FLAGS="--xla_force_host_platform_device_count=2",
                JAX_PLATFORMS="cpu")
     env.pop("JAX_COORDINATOR_ADDRESS", None)
     workers = [
@@ -58,8 +57,8 @@ def test_two_process_distributed_render_matches_single():
     assert abs(sums[0] - sums[1]) < 1e-3, sums
 
     # single-process oracle on the same work list
-    from ignis_tpu.api import Runtime
-    from ignis_tpu.render.integrator import trace_wave
+    from ignis_jax.api import Runtime
+    from ignis_jax.render.integrator import trace_wave
     import jax.numpy as jnp
     scene_dict = {
         "technique": {"type": "path", "max_depth": 2},

@@ -4,7 +4,7 @@ ParameterSet, RuntimeStructs.h:56-69).
 The registry is a traced float vector (`tables["params"]`): scene
 `parameters` entries plus built-in __camera_*/__time keys.  Changing a value
 must not retrace/recompile, and gradients must flow to registry-named
-parameters (the TPU build's replacement for the reference's
+parameters (this build's replacement for the reference's
 embed-vs-registry ShadingTree specialization, ShadingTree.h:16-63).
 """
 
@@ -49,7 +49,7 @@ def _param_scene():
 
 
 def _fresh(scene=None):
-    from ignis_tpu.api import load_scene
+    from ignis_jax.api import load_scene
     return load_scene(json.dumps(scene or _param_scene()))
 
 
@@ -112,7 +112,7 @@ def test_get_parameter_roundtrip():
 def test_gradient_flows_to_registry_parameter():
     import jax.numpy as jnp
 
-    from ignis_tpu.render.integrator import trace_wave
+    from ignis_jax.render.integrator import trace_wave
     rt = _fresh()
     scene = rt.scene
     n = 64
@@ -137,7 +137,7 @@ def test_gradient_flows_to_registry_parameter():
 
 
 def test_parameter_plane_scene_compiles(ref_scenes):
-    from ignis_tpu.api import load_scene
+    from ignis_jax.api import load_scene
     rt = load_scene(f"{ref_scenes}/parameter_plane.json",
                     width=16, height=16)
     rt.step(spi=1)
@@ -148,7 +148,7 @@ def test_runtime_bake_texture_and_expr():
     """Runtime.bake (BakeShader.cpp / entrypoints/bake.art): bakes scene
     textures and raw PExpr strings over the unit uv grid."""
     import numpy as np
-    from ignis_tpu.api import Runtime
+    from ignis_jax.api import Runtime
     sc = {
         "technique": {"type": "path", "max_depth": 2},
         "camera": {"type": "perspective", "fov": 60,

@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ignis_tpu.texture.pexpr import eval_pexpr
+from ignis_jax.texture.pexpr import eval_pexpr
 
 
 class _Scene:

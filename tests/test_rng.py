@@ -3,7 +3,7 @@ FNV + TEA counter RNG (src/artic/core/random.art)."""
 
 import numpy as np
 
-from ignis_tpu.core import rng
+from ignis_jax.core import rng
 
 M = 0xFFFFFFFF
 

@@ -11,7 +11,7 @@ import pytest
 
 
 def test_gauss_shape_geometry():
-    from ignis_tpu.scene.shapes import build_shape
+    from ignis_jax.scene.shapes import build_shape
     mesh = build_shape({"type": "gauss", "name": "g", "sigma": 0.5,
                         "height": 2.0, "sections": 16, "slices": 8},
                        lambda p: p)
@@ -28,7 +28,7 @@ def test_gauss_shape_geometry():
 def test_gauss_lobe_scene_renders(ref_scenes):
     import jax  # noqa: F401
 
-    from ignis_tpu.api import load_scene
+    from ignis_jax.api import load_scene
     rt = load_scene(f"{ref_scenes}/gauss_lobe.json", width=24, height=24)
     rt.step(spi=1)
     img = rt.currentFrame()
@@ -65,7 +65,7 @@ def _write_serialized(path, verts, faces, normals=None, uvs=None,
 
 
 def test_mitsuba_serialized_roundtrip(tmp_path):
-    from ignis_tpu.scene.mesh import load_serialized
+    from ignis_jax.scene.mesh import load_serialized
     verts = np.float32([[0, 0, 0], [1, 0, 0], [0, 1, 0], [1, 1, 0]])
     faces = np.uint32([[0, 1, 2], [1, 3, 2]])
     uvs = np.float32([[0, 0], [1, 0], [0, 1], [1, 1]])
@@ -80,7 +80,7 @@ def test_mitsuba_serialized_roundtrip(tmp_path):
 
 
 def test_mitsuba_serialized_v3(tmp_path):
-    from ignis_tpu.scene.mesh import load_serialized
+    from ignis_jax.scene.mesh import load_serialized
     verts = np.float32([[0, 0, 0], [2, 0, 0], [0, 2, 0]])
     faces = np.uint32([[0, 1, 2]])
     p = tmp_path / "tri.serialized"
@@ -93,7 +93,7 @@ def test_mitsuba_serialized_v3(tmp_path):
 def test_mitsuba_shape_in_scene(tmp_path):
     import jax  # noqa: F401
 
-    from ignis_tpu.api import load_scene
+    from ignis_jax.api import load_scene
     verts = np.float32([[-1, -1, 0], [1, -1, 0], [-1, 1, 0], [1, 1, 0]])
     faces = np.uint32([[0, 1, 3], [0, 3, 2]])
     _write_serialized(tmp_path / "m.serialized", verts, faces)
@@ -116,7 +116,7 @@ def test_mitsuba_shape_in_scene(tmp_path):
 
 
 def test_backslash_paths_resolve(tmp_path):
-    from ignis_tpu.scene.parser import load_scene_dict
+    from ignis_jax.scene.parser import load_scene_dict
     (tmp_path / "textures").mkdir()
     (tmp_path / "textures" / "t.png").write_bytes(b"")
     sc = load_scene_dict({}, base_dir=tmp_path)

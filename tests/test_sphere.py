@@ -47,7 +47,7 @@ def _scene(stype="sphere", emissive=False, stacks=64):
 
 
 def test_sphere_promoted_to_analytic_record():
-    from ignis_tpu.api import Runtime
+    from ignis_jax.api import Runtime
     rt = Runtime(_scene("sphere"))
     assert "sph_rows" in rt.tables
     sph = np.asarray(rt.tables["sph_rows"])
@@ -61,7 +61,7 @@ def test_sphere_promoted_to_analytic_record():
 
 
 def test_sphere_nonuniform_scale_falls_back():
-    from ignis_tpu.api import Runtime
+    from ignis_jax.api import Runtime
     sc = _scene("sphere")
     sc["entities"][0]["transform"] = [{"scale": [1.0, 2.0, 1.0]}]
     rt = Runtime(sc)
@@ -70,7 +70,7 @@ def test_sphere_nonuniform_scale_falls_back():
 
 
 def test_sphere_closest_matches_closed_form():
-    from ignis_tpu.ops.spheres import sphere_closest, sphere_any
+    from ignis_jax.ops.spheres import sphere_closest, sphere_any
     rows = np.zeros((2, 16), np.float32)
     rows[0, 0:3] = [0, 0, 0]
     rows[0, 3] = 1.0
@@ -106,7 +106,7 @@ def test_sphere_closest_matches_closed_form():
 
 
 def test_sphere_render_matches_tessellated():
-    from ignis_tpu.api import Runtime
+    from ignis_jax.api import Runtime
     rt_a = Runtime(_scene("sphere"))
     rt_t = Runtime(_scene("uvsphere", stacks=96))
     rt_a.step(spi=4)
@@ -120,7 +120,7 @@ def test_sphere_render_matches_tessellated():
 
 
 def test_sphere_area_light_matches_mesh_light():
-    from ignis_tpu.api import Runtime
+    from ignis_jax.api import Runtime
     rt_a = Runtime(_scene("sphere", emissive=True))
     rt_t = Runtime(_scene("uvsphere", emissive=True, stacks=96))
     rt_a.step(spi=8)
@@ -136,8 +136,8 @@ def test_sphere_area_light_matches_mesh_light():
 def test_sphere_light_fd_gradient():
     """FD oracle: d(mean image)/d(sphere-light radiance scale) via the
     differentiable wave equals finite differences."""
-    from ignis_tpu.api import Runtime
-    from ignis_tpu.render.integrator import trace_wave
+    from ignis_jax.api import Runtime
+    from ignis_jax.render.integrator import trace_wave
     rt = Runtime(_scene("sphere", emissive=True))
     scene, tables = rt.scene, rt.tables
     n = 256

@@ -3,7 +3,7 @@
 
 The reference ships 40 EXRs rendered at 4096/8192 spp by Mitsuba 2/3
 (scalar_rgb), Blender Cycles and Radiance (scenes/evaluation/README.md).
-This harness renders each matching scene with ignis_tpu at the scene's own
+This harness renders each matching scene with ignis_jax at the scene's own
 film size (256x256) and compares:
 
   * rel_mean  — |mean(ours) - mean(ref)| / mean(ref)   (global energy)
@@ -203,7 +203,7 @@ def _make_standin_env(path):
                       np.sin(np.pi / 3) * np.sin(0.7)])
     cosang = np.clip(np.sum(sd * sun, -1), -1, 1)
     img[cosang > np.cos(np.radians(1.0))] = np.float32([900., 850., 700.])
-    from ignis_tpu.utils.exr import write_exr
+    from ignis_jax.utils.exr import write_exr
     write_exr(str(path), img)
 
 
@@ -218,7 +218,7 @@ def render_standin(scene_path, spp, out_dir):
     if not std.exists():
         _make_standin_env(std)
     means = []
-    from ignis_tpu.scene.parser import (_strip_json_comments,
+    from ignis_jax.scene.parser import (_strip_json_comments,
                                         _strip_trailing_commas)
     for use_cdf in (True, False):
         d = _json.loads(_strip_trailing_commas(_strip_json_comments(
@@ -240,8 +240,8 @@ def render_standin(scene_path, spp, out_dir):
                          + (".cdf" if use_cdf else ".uni") + ".json")
         tmp.write_text(_json.dumps(d))
         # resolve relative mesh paths against the original directory
-        from ignis_tpu.api import Runtime
-        from ignis_tpu.scene.parser import load_scene_dict
+        from ignis_jax.api import Runtime
+        from ignis_jax.scene.parser import load_scene_dict
         sc = load_scene_dict(d, base_dir=Path(scene_path).parent)
         rt = Runtime(sc)
         spi = 4
@@ -257,7 +257,7 @@ def render_standin(scene_path, spp, out_dir):
 def render_scene(scene_path, spp, width=None, height=None):
     import warnings
 
-    from ignis_tpu.api import load_scene
+    from ignis_jax.api import load_scene
     with warnings.catch_warnings(record=True) as wlist:
         warnings.simplefilter("always")
         rt = load_scene(str(scene_path), width=width, height=height)
@@ -319,7 +319,7 @@ def main(argv=None):
             print(stem, "->", scene.name, scene.exists())
         return 0
 
-    from ignis_tpu.utils.exr import read_exr
+    from ignis_jax.utils.exr import read_exr
     board = {}
     npass = nfail = nerror = nskip = nknown = 0
     for stem, scene, ref_path in cases:

@@ -20,7 +20,7 @@ OUT = Path(__file__).resolve().parent.parent / "GOLDEN_INVESTIGATION.json"
 
 
 def _load_ref(stem):
-    from ignis_tpu.utils.exr import read_exr
+    from ignis_jax.utils.exr import read_exr
     for suf in ("-4096", "-8192", "-rad"):
         p = REFS / f"ref-{stem}{suf}.exr"
         if p.exists():
@@ -31,8 +31,8 @@ def _load_ref(stem):
 def _render(scene_path, spp=64, mutate=None):
     import json as _json
 
-    from ignis_tpu.api import Runtime
-    from ignis_tpu.scene.parser import load_scene_dict
+    from ignis_jax.api import Runtime
+    from ignis_jax.scene.parser import load_scene_dict
     src = _json.loads(Path(scene_path).read_text())
     if mutate:
         mutate(src)

@@ -138,9 +138,9 @@ def run(gltf_path, size=48, spp=8, iters=120, lr=0.05, seed=0,
     import jax
     import jax.numpy as jnp
 
-    from ignis_tpu.api import load_scene
-    from ignis_tpu.render.integrator import trace_wave
-    from ignis_tpu.utils.exr import write_exr
+    from ignis_jax.api import load_scene
+    from ignis_jax.render.integrator import trace_wave
+    from ignis_jax.utils.exr import write_exr
 
     rt = load_scene(str(gltf_path), width=size, height=size)
     scene = rt.scene

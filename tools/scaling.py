@@ -38,8 +38,8 @@ import jax.numpy as jnp  # noqa: E402
 
 
 def main():
-    from ignis_tpu.api import Runtime
-    from ignis_tpu.parallel.sharding import (
+    from ignis_jax.api import Runtime
+    from ignis_jax.parallel.sharding import (
         make_mesh, replicate, shard_wave, sharded_render_fn)
 
     ncores = os.cpu_count() or 1
